@@ -168,16 +168,23 @@ def analyze(path: str):
     return df
 
 
+def _pickles() -> list[str]:
+    """Sweep pickles under measurements/data/ (none before a sweep runs)."""
+    if not os.path.isdir(DATA_DIR):
+        return []
+    return [os.path.join(DATA_DIR, p) for p in sorted(os.listdir(DATA_DIR))
+            if p.endswith(".pkl")]
+
+
 def cross_run_table():
     """Thesis cross-run summary (reference analysis.py cross_run:961-1005):
     one row per committed sweep — best config, throughput, prune rate."""
     import pandas as pd
 
     rows = []
-    for name in sorted(os.listdir(DATA_DIR)):
-        if not name.endswith(".pkl"):
-            continue
-        df = pd.read_pickle(os.path.join(DATA_DIR, name))
+    for path in _pickles():
+        name = os.path.basename(path)
+        df = pd.read_pickle(path)
         if "nsec-per-tuple" not in df:
             continue
         best = df.loc[df["nsec-per-tuple"].idxmin()]
@@ -187,12 +194,15 @@ def cross_run_table():
             "best ns/tuple": round(float(best["nsec-per-tuple"]), 3),
             "best config": " ".join(
                 f"{k}={best[k]}" for k in ("algorithm", "bloom_filter",
-                                           "bloom_hashes", "radix_bits",
-                                           "devices", "passes")
+                                           "bloom_hashes", "devices")
                 if k in best and best[k] not in (None, "no", 0, 1)),
             "results": int(best["results"]) if best["results"] else None,
         })
     out = pd.DataFrame(rows)
+    if out.empty:
+        print("no sweep pickles in measurements/data/ "
+              "(run `python measurements/run.py <sweep>` first)")
+        return out
     path = os.path.join(DATA_DIR, "cross_run.md")
     with open(path, "w") as f:
         f.write(out.to_markdown(index=False))
@@ -205,8 +215,5 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "cross":
         cross_run_table()
     else:
-        paths = sys.argv[1:] or [os.path.join(DATA_DIR, p)
-                                 for p in os.listdir(DATA_DIR)
-                                 if p.endswith(".pkl")]
-        for p in paths:
+        for p in sys.argv[1:] or _pickles():
             analyze(p)

@@ -1,13 +1,12 @@
 """Experiment configuration for the sweep harness.
 
 Parity with the reference's measurements/config.py: JoinConfig dataclass ->
-CLI arguments (reference config.py:14-87).  Two structural differences, both
-TPU-native wins:
+CLI arguments (reference config.py:14-87).  Two structural differences:
 
 - No source patching + recompiling: the reference rewrites prj_params.h and
   cpu_mapping.c then re-runs autotools per configuration
-  (set_prj_params:280-312, set_cpu_constant:315-329).  Here NUM_RADIX_BITS /
-  NUM_PASSES equivalents are runtime engine flags (--engine-radix-bits).
+  (set_prj_params:280-312, set_cpu_constant:315-329).  The engine has no
+  radix-bits or pass-count knobs to patch: its tiers follow the input.
 - No cpu-mapping.txt thread-placement files: device placement is the mesh.
   The `threads` field feeds the generator's layout parity only.
 """
@@ -16,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 import shlex
-from typing import Optional
 
 
 @dataclasses.dataclass
@@ -35,15 +33,10 @@ class JoinConfig:
     bloom_block_size: int = 512       # B bits
     non_unique: bool = False
     full_range: bool = False
-    radix_bits: Optional[int] = None
-    use_pallas: bool = True
-    no_dense: bool = False            # disable the dense-PK planner shortcut
-    backend: str = "auto"
+    backend: str = "gpu"              # gpu | cpu
     repeats: int = 1
-    inner: int = 1                    # in-jit chained repeats (--engine-inner)
+    inner: int = 1                    # warmed executions (--engine-inner)
     devices: int = 0                  # dist mesh size (0 = local engine)
-    local_join: str = "sortscan"      # dist per-device engine (pallas|sortscan)
-    passes: int = 1                   # radix passes (--engine-passes)
 
     def to_args(self) -> list[str]:
         args = [
@@ -64,19 +57,9 @@ class JoinConfig:
             args.append("--non-unique")
         if self.full_range:
             args.append("--full-range")
-        if self.radix_bits is not None:
-            args += ["--engine-radix-bits", str(self.radix_bits)]
-        if not self.use_pallas:
-            args.append("--engine-no-pallas")
-        if self.no_dense:
-            args.append("--engine-no-dense")
         if self.devices >= 1:
             args += ["--engine-devices", str(self.devices)]
-            if self.local_join != "sortscan":
-                args += ["--engine-local-join", self.local_join]
-        if self.passes != 1:
-            args += ["--engine-passes", str(self.passes)]
-        if self.backend != "auto":
+        if self.backend != "gpu":
             args += ["--engine-backend", self.backend]
         if self.repeats > 1:
             args += ["--engine-repeats", str(self.repeats)]
@@ -85,5 +68,5 @@ class JoinConfig:
         return args
 
     def cmdline(self) -> str:
-        return shlex.join(["python", "-m", "hwbloomradixjoin_tpu.cli"]
+        return shlex.join(["python", "-m", "hwbloomradixjoin.cli"]
                           + self.to_args())

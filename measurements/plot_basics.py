@@ -3,9 +3,9 @@
 The reference regenerates thesis/ICDE figures from committed result files
 (plot_basics.py: Balkesen fig 5/9/11/12 + filter validation + theoretical
 FPR curve, calc_fpr:19-21).  This module renders the same figure families
-from the TPU harness's sweep pickles (measurements/data/*.pkl):
+from the harness's sweep pickles (measurements/data/*.pkl, written by
+measurements/run.py; a missing pickle skips its figure):
 
-    figure9   ns/tuple vs radix bits        (sweep_radix_bits)
     figure11  PRO vs PRH vs PRHO            (sweep_algos / quick data)
     scaling   rows/s + efficiency vs devices (sweep_scaling)
     bloom     basic vs blocked x k           (sweep_bloom)
@@ -14,7 +14,7 @@ from the TPU harness's sweep pickles (measurements/data/*.pkl):
 Styling: colorblind-safe fixed-order categorical palette (Okabe-Ito),
 single axis per chart, recessive grid, direct labels where few series.
 
-Usage:  python measurements/plot_basics.py [all|figure9|scaling|bloom|fpr]
+Usage:  python measurements/plot_basics.py [all|figure11|scaling|bloom|fpr]
 """
 
 from __future__ import annotations
@@ -68,25 +68,6 @@ def _load(name):
     return pd.read_pickle(path)
 
 
-def plot_figure9():
-    """ns/tuple vs radix bits — the NUM_RADIX_BITS sweep (ref figure 9)."""
-    df = _load("radix_bits")
-    if df is None:
-        return
-    d = df[df["radix-bits"] >= 0].sort_values("radix-bits")
-    fig, ax = _ax("PRO: radix-bits sweep (figure-9 analogue)",
-                  "partition fan-out bits", "ns / S-tuple")
-    ax.plot(d["radix-bits"], d["nsec-per-tuple"], "-o", color=C[0],
-            linewidth=2, markersize=5)
-    auto = df[df["radix-bits"] < 0]
-    if len(auto):
-        ax.axhline(float(auto["nsec-per-tuple"].iloc[0]), color=C[1],
-                   linewidth=1.2, linestyle="--")
-        ax.annotate("auto fan-out", xy=(0.02, 0.06), xycoords="axes fraction",
-                    fontsize=8, color=C[1])
-    _save(fig, "figure9_radix_bits")
-
-
 def plot_scaling():
     """Throughput + efficiency vs mesh devices (new scope vs reference)."""
     df = _load("scaling")
@@ -126,7 +107,7 @@ def plot_fpr():
     calc_fpr parity (reference plot_basics.py:19-21, unit_tests.c:231-232)
     at the golden geometry m=2^30, n=128M (bloom_filter_fpr.txt).
     """
-    from hwbloomradixjoin_tpu.ops.bloom import theoretical_fpr
+    from hwbloomradixjoin.ops.bloom import theoretical_fpr
 
     ks = np.arange(1, 13)
     fig, ax = _ax("Bloom FPR vs k  (m=2$^{30}$, n=128M)", "k",
@@ -173,7 +154,7 @@ def plot_figure11_b():
     Reference bars: base_results/figure11/{PRO,PRH,PRHO}_B_14.txt = 9.85 /
     12.73 / 11.35 ns/tuple (isengard, 8 thr, 14 radix bits); the reference
     has no NPO workload-B run, so NPO shows the engine bar only.
-    Side-by-side with the engine's measured TPU numbers (algos_B sweep).
+    Side-by-side with the engine's measured numbers (algos_B sweep).
     """
     df = _load("algos_B")
     if df is None:
@@ -182,14 +163,14 @@ def plot_figure11_b():
     order = [a for a in ("PRO", "PRH", "PRHO", "NPO")
              if a in set(df["algorithm"])]
     d = df.set_index("algorithm").reindex(order)
-    fig, ax = _ax("Workload B (128M$\\bowtie$128M): TPU engine vs reference",
+    fig, ax = _ax("Workload B (128M$\\bowtie$128M): engine vs reference",
                   "", "ns / S-tuple")
     xs = np.arange(len(d))
     w = 0.38
     ax.bar(xs - w / 2, [ref.get(a, 0) for a in order], width=w, color=C[3],
            label="reference (isengard, 8 thr)")
     ax.bar(xs + w / 2, d["nsec-per-tuple"], width=w, color=C[0],
-           label="this engine (1 TPU chip)")
+           label="this engine (1 device)")
     ax.set_xticks(xs)
     ax.set_xticklabels(order, fontsize=9)
     for x, v in zip(xs + w / 2, d["nsec-per-tuple"]):
@@ -197,18 +178,6 @@ def plot_figure11_b():
                     xytext=(0, 3), ha="center", fontsize=8)
     ax.legend(fontsize=8)
     _save(fig, "figure11_algos_B")
-
-
-def plot_passes():
-    """1-pass vs 2-pass partitioning (ref never_single_pass axis)."""
-    df = _load("passes")
-    if df is None:
-        return
-    d = df.sort_values("passes")
-    fig, ax = _ax("Partitioning passes", "passes", "ns / S-tuple")
-    ax.bar(d["passes"].astype(str), d["nsec-per-tuple"],
-           color=[C[0], C[1]][:len(d)], width=0.5)
-    _save(fig, "passes")
 
 
 def plot_dist_bloom():
@@ -236,10 +205,9 @@ def plot_dist_bloom():
     _save(fig, "dist_bloom")
 
 
-PLOTS = {"figure9": plot_figure9, "scaling": plot_scaling,
+PLOTS = {"scaling": plot_scaling,
          "bloom": plot_bloom, "fpr": plot_fpr,
          "figure11": plot_figure11, "figure11_b": plot_figure11_b,
-         "passes": plot_passes,
          "dist_bloom": plot_dist_bloom}
 
 

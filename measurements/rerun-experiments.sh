@@ -1,33 +1,25 @@
 #!/bin/bash
 # Figure-reproduction driver — parity with the reference's
 # base_results/rerun-experiments.sh: re-runs the sweep experiments and
-# regenerates every figure from the committed data.
+# regenerates every figure from their data (measurements/data/).
 #
-# Usage:  bash measurements/rerun-experiments.sh [cpu|tpu]
-#   cpu: validation-scale sweeps on the CPU backend (fast, no chip needed)
-#   tpu: full sweeps on the attached TPU (the committed data's provenance)
+# Usage:  bash measurements/rerun-experiments.sh [cpu|gpu]
+#   cpu: validation-scale sweeps on the CPU backend (fast, no GPU needed)
+#   gpu: full sweeps on one GPU (each CLI run is its own process, so run
+#        nothing else on the card meanwhile)
 set -e
 cd "$(dirname "$0")/.."
-MODE=${1:-tpu}
+MODE=${1:-gpu}
 
 if [ "$MODE" = cpu ]; then
     python measurements/run.py quick
     python measurements/run.py scaling
 else
-    # full-scale sweep set (the committed data's provenance); enable the
-    # persistent compile cache so repeated geometries skip recompiles
-    export JAX_COMPILATION_CACHE_DIR=${JAX_COMPILATION_CACHE_DIR:-$HOME/.cache/jaxcomp}
-    export JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS=2
-    HBRJ_SWEEP_R=16000000 HBRJ_SWEEP_S=128000000 \
-        python measurements/run.py radix_bits
     HBRJ_SWEEP_R=16000000 HBRJ_SWEEP_S=128000000 \
         python measurements/run.py algos
     python measurements/run.py algos_b      # workload B: 128M x 128M
     HBRJ_SWEEP_R=16000000 HBRJ_SWEEP_S=128000000 \
         python measurements/run.py bloom
-    HBRJ_SWEEP_R=16000000 HBRJ_SWEEP_S=128000000 \
-        python measurements/run.py passes
-    python measurements/run.py never_single_pass
     python measurements/run.py params
     HBRJ_SWEEP_R=8000000 HBRJ_SWEEP_S=64000000 \
         python measurements/run.py scaling

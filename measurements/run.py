@@ -7,10 +7,10 @@ pandas dataframes saved as pkl + markdown.
 
 Sweeps mirrored from the reference:
   best_bloom_filter_type  (basic vs blocked x k x scales; run.py:272)
-  never_single_pass       (passes x filter x k; run.py:205 — here the
-                           radix-bits knob is runtime, no recompiles)
   test_parameters         (|R| x S:R ratio x q x k; run.py:326)
-plus `scaling` (device-count scaling efficiency, new scope).
+plus `algos` (figure 11), `scaling` and `dist_bloom` (device-count scaling
+and pre-shuffle pruning, new scope).  Nothing here is committed data: the
+sweeps write measurements/data/ when run.
 
 Usage:
   python measurements/run.py quick          # small smoke sweep
@@ -69,7 +69,7 @@ def parse_result(res: str) -> dict:
 
 
 def run_one(cfg: JoinConfig, timeout: int = 1200, env: dict | None = None) -> dict:
-    cmd = [sys.executable, "-m", "hwbloomradixjoin_tpu.cli"] + cfg.to_args()
+    cmd = [sys.executable, "-m", "hwbloomradixjoin.cli"] + cfg.to_args()
     t0 = time.time()
     run_env = dict(os.environ)
     if env:
@@ -111,26 +111,24 @@ def sweep_quick(backend="cpu"):
             cfg = JoinConfig(algorithm=algo, r_size=100_000, s_size=400_000,
                              selectivity=0.25, threads=4, bloom_filter=bloom,
                              bloom_size=1 << 20, bloom_hashes=2,
-                             backend=backend, use_pallas=backend != "cpu")
+                             backend=backend)
             rows.append(run_one(cfg))
     return save_data(rows, "quick")
 
 
-def sweep_bloom(backend="auto", r_size=1_000_000, s_size=8_000_000,
+def sweep_bloom(backend="gpu", r_size=1_000_000, s_size=8_000_000,
                 m=None, inner=4, ks=(1, 2, 4, 8)):
     """best_bloom_filter_type parity: basic vs blocked x k (run.py:272).
 
     Includes a no-bloom PRO row as the comparison base (the thesis
     question is bloom's *speedup over the plain join*).  Default m
-    scales with |R| (reference uses m=2^30 at the 128M flagship; the
-    blocked flagship geometry takes the 2-pass Pallas hash-partition
-    tier, ops/bloom_pallas.plan_bloom_prune_2pass).
+    scales with |R| (reference uses m=2^30 at the 128M flagship).
     """
     if m is None:
         m = 1 << min(max((r_size * 8 - 1).bit_length(), 20), 30)
     rows = []
     base = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
-                      selectivity=0.01, no_dense=True, inner=inner,
+                      selectivity=0.01, inner=inner,
                       backend=backend)
     row = run_one(base, timeout=7200)
     row["bloom"], row["k"] = "no", 0
@@ -139,7 +137,7 @@ def sweep_bloom(backend="auto", r_size=1_000_000, s_size=8_000_000,
     for variant, k in itertools.product(("blocked", "basic"), tuple(ks)):
         cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
                          selectivity=0.01, bloom_filter=variant,
-                         bloom_size=m, bloom_hashes=k, no_dense=True,
+                         bloom_size=m, bloom_hashes=k,
                          inner=inner, backend=backend)
         row = run_one(cfg, timeout=7200)
         row["bloom"], row["k"] = variant, k
@@ -148,17 +146,17 @@ def sweep_bloom(backend="auto", r_size=1_000_000, s_size=8_000_000,
     return save_data(rows, "bloom_filter_type")
 
 
-def sweep_params(backend="auto", inner=4, r_sizes=(250_000, 1_000_000)):
+def sweep_params(backend="gpu", inner=4, r_sizes=(250_000, 1_000_000)):
     """test_parameters parity: |R| x ratio x q (run.py:326).
 
     The reference's full grid also sweeps threads and bits/key; the
-    engine's thread axis is the device mesh (scaling sweep) and radix
-    bits have their own sweep, so the grid here is |R| x S:R x q.
+    engine's thread axis is the device mesh (scaling sweep) and it has no
+    radix-bits knob, so the grid here is |R| x S:R x q.
     """
     rows = []
     for r_size, ratio, q in itertools.product(
             r_sizes, (1, 4, 8), (0.001, 0.01, 0.1)):
-        cfg = JoinConfig(algorithm="PRO", r_size=r_size, no_dense=True,
+        cfg = JoinConfig(algorithm="PRO", r_size=r_size,
                          s_size=r_size * ratio, selectivity=q,
                          inner=inner, backend=backend)
         row = run_one(cfg, timeout=7200)
@@ -168,76 +166,13 @@ def sweep_params(backend="auto", inner=4, r_sizes=(250_000, 1_000_000)):
     return save_data(rows, "test_parameters")
 
 
-def sweep_radix_bits(backend="auto", r_size=1_000_000, s_size=8_000_000,
-                     bits_list=None):
-    """Figure-9 analogue: NUM_RADIX_BITS sweep — a runtime knob here.
-
-    The reference sweeps 12..17 via sed+rebuild
-    (base_results/rerun-experiments.sh); the engine's valid window is
-    [range-19, range-12] bits (ops/bitmap_join.plan_geometry) so the sweep
-    covers the whole window plus the auto setting.  bits_list (or env
-    HBRJ_SWEEP_BITS="5,6,8") restricts/resumes the sweep; rows append to
-    any existing pkl for the same workload (long TPU sweeps run in
-    installments).
-    """
-    import pandas as pd
-
-    rows = []
-    pkl = os.path.join(DATA_DIR, "radix_bits.pkl")
-    if os.path.exists(pkl):
-        prev = pd.read_pickle(pkl)
-        if len(prev) and (prev["r_size"] == r_size).all():
-            rows = prev.to_dict("records")
-    done = {r.get("radix-bits") for r in rows}
-    range_bits = max((r_size - 1).bit_length(), 12)
-    if bits_list is None:
-        bits_list = [None] + list(range(max(range_bits - 19, 0),
-                                        max(range_bits - 12, 0) + 1))
-    for bits in bits_list:
-        if (-1 if bits is None else bits) in done:
-            continue
-        cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
-                         radix_bits=bits, no_dense=True, inner=4,
-                         backend=backend)
-        row = run_one(cfg, timeout=7200)
-        row["radix-bits"] = -1 if bits is None else bits
-        rows.append(row)
-        save_data(rows, "radix_bits")   # incremental: partial data survives
-    return save_data(rows, "radix_bits")
-
-
-def sweep_never_single_pass(backend="auto", r_size=1_000_000,
-                            s_size=8_000_000):
-    """never_single_pass parity (reference run.py:205): fan-out x filter x k.
-
-    The reference's 1-vs-2-pass axis is NUM_PASSES; the engine's pass
-    structure is fan-out-driven (partition pass + VMEM probe pass), so the
-    axis here is minimum vs maximum fan-out x filter variant x k.
-    """
-    rows = []
-    range_bits = max((r_size - 1).bit_length(), 12)
-    fanouts = [max(range_bits - 17, 0), max(range_bits - 12, 0)]
-    for bits, variant, k in itertools.product(
-            fanouts, ("no", "basic", "blocked"), (1, 3)):
-        if variant == "no" and k != 1:
-            continue
-        cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
-                         selectivity=0.01, radix_bits=bits, no_dense=True,
-                         bloom_filter=variant, bloom_size=1 << 26,
-                         bloom_hashes=k, inner=4, backend=backend)
-        row = run_one(cfg, timeout=7200)
-        row["radix-bits"] = bits
-        rows.append(row)
-    return save_data(rows, "never_single_pass")
-
-
 def sweep_scaling(r_size=500_000, s_size=4_000_000, max_devices=8):
     """Device-count scaling: 1 -> N mesh devices, efficiency column.
 
     Runs the distributed SPMD join (psum histograms + all_to_all shuffle)
     on a virtual CPU mesh (xla_force_host_platform_device_count) so the
-    sweep works without a pod slice; on real multi-chip hardware the same
-    flags run over ICI.  Efficiency = T(1) / (N * T(N)) on rows/s.
+    sweep works without several cards; on real cards the same flags run
+    over their interconnect.  Efficiency = T(1) / (N * T(N)) on rows/s.
 
     READ THE NUMBER CAREFULLY: on a virtual mesh all N "devices" share
     one host's cores, and the 1-device XLA program already uses them all
@@ -245,58 +180,39 @@ def sweep_scaling(r_size=500_000, s_size=4_000_000, max_devices=8):
     here by construction — it measures SPMD overhead (shuffle, capacity
     padding, replicated work), not hardware scaling.  The wall-clock
     SPEEDUP column is the honest virtual-mesh signal; the >=80%
-    efficiency target (BASELINE) is a real-multi-chip criterion that this
-    environment (one attached chip) cannot measure.
+    efficiency target (BASELINE) is a criterion for real cards, which
+    this CPU sweep cannot measure.
     """
     rows = []
     env = {"JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": f"--xla_force_host_platform_device_count={max_devices}"}
-    for local_join in ("pallas", "sortscan"):
-        base = None
-        n = 1
-        while n <= max_devices:
-            cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
-                             selectivity=0.25, backend="cpu", devices=n,
-                             local_join=local_join, repeats=3)
-            row = run_one(cfg, env=env, timeout=7200)
-            row["devices"] = n
-            row["local-join"] = local_join
-            if base is None:
-                base = row["time-usecs"]
-            row["scaling-efficiency"] = base / (n * row["time-usecs"])
-            row["speedup-vs-1dev"] = base / row["time-usecs"]
-            rows.append(row)
-            save_data(rows, "scaling")
-            n *= 2
+    base = None
+    n = 1
+    while n <= max_devices:
+        cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
+                         selectivity=0.25, backend="cpu", devices=n,
+                         repeats=3)
+        row = run_one(cfg, env=env, timeout=7200)
+        row["devices"] = n
+        if base is None:
+            base = row["time-usecs"]
+        row["scaling-efficiency"] = base / (n * row["time-usecs"])
+        row["speedup-vs-1dev"] = base / row["time-usecs"]
+        rows.append(row)
+        save_data(rows, "scaling")
+        n *= 2
     return save_data(rows, "scaling")
 
 
-def sweep_passes(backend="auto", r_size=1_000_000, s_size=8_000_000):
-    """NUM_PASSES axis: 1-pass vs 2-pass partitioning at forced fan-out."""
-    rows = []
-    range_bits = max((r_size - 1).bit_length(), 12)
-    bits = max(range_bits - 14, 2)
-    for passes in (1, 2):
-        cfg = JoinConfig(algorithm="PRO", r_size=r_size, s_size=s_size,
-                         radix_bits=bits, no_dense=True, passes=passes,
-                         inner=4, backend=backend)
-        row = run_one(cfg, timeout=7200)
-        row["passes"] = passes
-        rows.append(row)
-        save_data(rows, "passes")
-    return save_data(rows, "passes")
-
-
-def sweep_algos(backend="auto", r_size=1_000_000, s_size=8_000_000,
+def sweep_algos(backend="gpu", r_size=1_000_000, s_size=8_000_000,
                 inner=4, name="algos"):
     """Figure-11 analogue: PRO vs PRH vs PRHO (vs NPO), one workload.
 
     The reference's three-way build/probe-kernel comparison
-    (base_results/figure11: 9.85 / 12.73 / 11.35 ns/tuple); here each name
-    runs a genuinely distinct engine tier (pallas_radix / pallas_prh /
-    pallas_prho / pallas_npo — models/registry.py), timed with `inner`
-    chained in-jit repeats (no dispatch-floor subtraction at this scale).
-    Rows append incrementally so long TPU sweeps survive interruption.
+    (base_results/figure11: 9.85 / 12.73 / 11.35 ns/tuple); each name runs
+    on the tier the planner picks for it (models/registry.py), timed as
+    `inner` warmed executions.  Rows append incrementally so long sweeps
+    survive interruption.
     """
     import pandas as pd
 
@@ -311,7 +227,7 @@ def sweep_algos(backend="auto", r_size=1_000_000, s_size=8_000_000,
         if algo in done:
             continue
         cfg = JoinConfig(algorithm=algo, r_size=r_size, s_size=s_size,
-                         no_dense=True, backend=backend, inner=inner)
+                         backend=backend, inner=inner)
         row = run_one(cfg, timeout=7200)
         row["algo"] = algo
         rows.append(row)
@@ -319,7 +235,7 @@ def sweep_algos(backend="auto", r_size=1_000_000, s_size=8_000_000,
     return save_data(rows, name)
 
 
-def sweep_algos_b(backend="auto", inner=2):
+def sweep_algos_b(backend="gpu", inner=2):
     """sweep_algos at the reference's workload B (128M x 128M, 8B tuples):
     base_results/figure11/{PRO,PRH,PRHO}_B_14.txt = 9.85 / 12.73 / 11.35
     ns/tuple on isengard."""
@@ -330,8 +246,7 @@ def sweep_algos_b(backend="auto", inner=2):
 def sweep_dist_bloom(r_size=1_000_000, s_size=8_000_000, devices=8):
     """Distributed bloom: exchange-volume reduction from pre-shuffle prune.
 
-    The TPU-native bloom win (measurements/BLOOM_NOTES.md): S tuples
-    failing the filter never cross the interconnect.  Rows record the
+    S tuples failing the filter never cross the interconnect.  Rows record the
     survivor count and the implied shuffled-S bytes with/without filter.
     """
     rows = []
@@ -355,9 +270,7 @@ def sweep_dist_bloom(r_size=1_000_000, s_size=8_000_000, devices=8):
 
 SWEEPS = {"quick": sweep_quick, "bloom": sweep_bloom, "params": sweep_params,
           "dist_bloom": sweep_dist_bloom,
-          "radix_bits": sweep_radix_bits,
-          "never_single_pass": sweep_never_single_pass,
-          "scaling": sweep_scaling, "passes": sweep_passes,
+          "scaling": sweep_scaling,
           "algos": sweep_algos, "algos_b": sweep_algos_b}
 
 
@@ -375,9 +288,6 @@ if __name__ == "__main__":
     if os.environ.get("HBRJ_SWEEP_RSIZES"):
         kwargs["r_sizes"] = tuple(
             int(x) for x in os.environ["HBRJ_SWEEP_RSIZES"].split(","))
-    if os.environ.get("HBRJ_SWEEP_BITS"):
-        kwargs["bits_list"] = [
-            int(x) for x in os.environ["HBRJ_SWEEP_BITS"].split(",")]
     import inspect
     sig = inspect.signature(SWEEPS[which])
     kwargs = {k: v for k, v in kwargs.items() if k in sig.parameters}

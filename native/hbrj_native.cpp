@@ -1,4 +1,4 @@
-// hbrj_native — host-side native runtime for hwbloomradixjoin_tpu.
+// hbrj_native — host-side native runtime for hwbloomradixjoin.
 //
 // Fast deterministic data generation with glibc-rand()-compatible streams
 // (needed for bit-compatible Zipf / non-unique key populations: the reference
@@ -7,16 +7,36 @@
 // count and bloom filter used as ground truth by the test suite.
 //
 // Semantics mirrored from the reference (see docstrings in
-// hwbloomradixjoin_tpu/data/generator.py for file:line citations); all code
+// hwbloomradixjoin/data/generator.py for file:line citations); all code
 // here is written fresh against those specs.
 //
 // Build: make -C native   ->  native/libhbrj_native.so
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <thread>
 #include <vector>
 #include <unordered_map>
+
+// Runs body(i) for i in [0, n) on one contiguous range per hardware thread.
+// Plain std::thread: it needs no OpenMP runtime, which not every g++
+// installation ships.
+template <class F>
+static void parallel_for(int64_t n, F body) {
+  int64_t nt = std::max<int64_t>(1, std::thread::hardware_concurrency());
+  nt = std::min<int64_t>(nt, std::max<int64_t>(1, n / 65536));
+  int64_t step = (n + nt - 1) / nt;
+  std::vector<std::thread> threads;
+  for (int64_t lo = 0; lo < n; lo += step) {
+    int64_t hi = std::min(n, lo + step);
+    threads.emplace_back([lo, hi, &body] {
+      for (int64_t i = lo; i < hi; i++) body(i);
+    });
+  }
+  for (auto& t : threads) t.join();
+}
 
 extern "C" {
 
@@ -124,8 +144,7 @@ void hbrj_gen_zipf(uint32_t seed, int64_t stream_size, int64_t alphabet_size,
   std::vector<int32_t> draws((size_t)stream_size);
   for (int64_t i = 0; i < stream_size; i++) draws[i] = rand_next(&rs);
 
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < stream_size; i++) {
+  parallel_for(stream_size, [&](int64_t i) {
     double r = ((double)draws[i]) / 2147483647.0;
     int64_t pos;
     if (lut[0] >= r) {
@@ -139,7 +158,7 @@ void hbrj_gen_zipf(uint32_t seed, int64_t stream_size, int64_t alphabet_size,
       pos = right;
     }
     out_keys[i] = (int32_t)alphabet[pos];
-  }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -303,8 +322,7 @@ void hbrj_ref_bloom(int variant, uint64_t m, uint64_t k, uint64_t B,
     }
   }
 
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < n_query; i++) {
+  parallel_for(n_query, [&](int64_t i) {
     uint32_t key = (uint32_t)query_keys[i];
     uint64_t base = 0;
     if (variant == 1)
@@ -318,7 +336,7 @@ void hbrj_ref_bloom(int variant, uint64_t m, uint64_t k, uint64_t B,
       y = (uint32_t)(y + j + 1) & (uint32_t)(size - 1);
     }
     out_contains[i] = ok;
-  }
+  });
   if (bitmap_out) memcpy(bitmap_out, bitmap.data(), (size_t)(m / 8));
 }
 

@@ -1,13 +1,17 @@
-"""Bitmap radix-join engine + new planner tiers (interpret mode, CPU)."""
+"""run_join on every tier, exact against the native reference.
+
+The file keeps its name from the bitmap-join engine whose tests these
+replace; the workloads those tests used are cases of the parametrized
+tests below."""
 
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.config import EngineConfig, RadixConfig
-from hwbloomradixjoin_tpu.data import generator as G
-from hwbloomradixjoin_tpu.data import native
-from hwbloomradixjoin_tpu.models import run_join
-from hwbloomradixjoin_tpu.types import KeyStats, Relation
+from hwbloomradixjoin.config import BloomArgs, BloomVariant, EngineConfig
+from hwbloomradixjoin.data import generator as G
+from hwbloomradixjoin.data import native
+from hwbloomradixjoin.models import registry, run_join
+from hwbloomradixjoin.types import KeyStats, Relation
 
 
 def _workload(n_r=5000, n_s=40000, hi_mult=3, seed=0):
@@ -19,47 +23,178 @@ def _workload(n_r=5000, n_s=40000, hi_mult=3, seed=0):
     return rk, rp, sk, sp
 
 
-def test_bitmap_plan_count_exact():
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
+# ---------------------------------------------------------------------------
+# workloads the deleted partitioned kernels were tested on, now run through
+# the planner's tiers: each returns (rk, rp, sk, sp, declared stats or None)
+# ---------------------------------------------------------------------------
 
-    rk, rp, sk, sp = _workload()
-    plan = bitmap_join.plan_radix_join(jnp.asarray(rk), jnp.asarray(sk),
-                                       1, 5000, interpret=True)
-    assert plan is not None
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    assert plan.count() == want
-
-
-def test_bitmap_radix_bits_sweep_same_count():
-    """--engine-radix-bits changes the kernel geometry, not the answer."""
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    rk, rp, sk, sp = _workload(n_r=60000, n_s=50000, hi_mult=2)
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    geoms = set()
-    for bits in (0, 2, 4):
-        plan = bitmap_join.plan_radix_join(
-            jnp.asarray(rk), jnp.asarray(sk), 1, 60000, interpret=True,
-            num_radix_bits=bits)
-        assert plan is not None
-        geoms.add(bitmap_join.plan_geometry(1, 60000, num_radix_bits=bits))
-        assert plan.count() == want
-    assert len(geoms) > 1  # the knob really changes geometry
+def _skewed():
+    """One heavy S key next to a uniform tail."""
+    rng = np.random.default_rng(13)
+    rk, rp, _, _ = _workload(n_r=5000)
+    sk = np.concatenate([np.full(60000, 7, np.int32),
+                         rng.integers(1, 10000, 40000).astype(np.int32)])
+    rng.shuffle(sk)
+    sp = rng.integers(0, 1 << 30, sk.shape[0]).astype(np.int32)
+    return rk, rp, sk, sp, KeyStats(1, 5000, is_unique=True)
 
 
-def test_run_join_pallas_radix_tier():
-    rk, rp, sk, sp = _workload()
+def _deep_span():
+    """Sparse R over a 2M-key range, most of S outside it."""
+    rng = np.random.default_rng(7)
+    lo, hi = 1, 1 << 21
+    rk = rng.choice(np.arange(lo, hi + 1), 4000, replace=False)
+    sk = np.concatenate([rng.choice(rk, 1500), rng.integers(lo, hi + 1, 1500),
+                         rng.integers(hi + 1, 1 << 28, 27000)])
+    rng.shuffle(sk)
+    return (rk.astype(np.int32), np.arange(4000, dtype=np.int32),
+            sk.astype(np.int32), np.arange(30000, dtype=np.int32), None)
+
+
+def _full_range():
+    """Unique R spread over [1, 2^31): wider than HT_MAX_SLOTS."""
+    rng = np.random.default_rng(3)
+    rk = np.unique(rng.integers(1, (1 << 31) - 1, 3100))[:3000]
+    rng.shuffle(rk)
+    sk = np.concatenate([rng.choice(rk, 2000),
+                         rng.integers(1, (1 << 31) - 1, 20000)])
+    rng.shuffle(sk)
+    return (rk.astype(np.int32), np.arange(3000, dtype=np.int32),
+            sk.astype(np.int32), np.arange(22000, dtype=np.int32),
+            KeyStats(int(rk.min()), int(rk.max()), is_unique=True))
+
+
+def _non_unique():
+    """Duplicate R keys: every S match counts R's multiplicity."""
+    rng = np.random.default_rng(7)
+    rk = rng.integers(1, 4000, 6000).astype(np.int32)
+    rp = rng.integers(0, 1 << 30, 6000).astype(np.int32)
+    sk = rng.integers(1, 8000, 30000).astype(np.int32)
+    sp = rng.integers(0, 1 << 30, 30000).astype(np.int32)
+    return rk, rp, sk, sp, None
+
+
+def _two_pass_sized():
+    """The size at which the reference takes a second partition pass."""
+    rk, rp, sk, sp = _workload(n_r=60000, n_s=120000, hi_mult=2, seed=3)
+    return rk, rp, sk, sp, KeyStats(1, 60000, is_unique=True)
+
+
+def _generated_fullrange():
+    """The generator's --full-range population (non-unique R)."""
+    p = G.WorkloadParams(r_size=3000, s_size=20000, nthreads=2,
+                         fullrange_keys=True)
+    return (*G.build_workload(p), None)
+
+
+def _zipf():
+    p = G.WorkloadParams(r_size=4000, s_size=30000, nthreads=2, skew=0.75)
+    return (*G.build_workload(p), G.r_key_stats(p))
+
+
+WORKLOADS = {"skewed": _skewed, "deep_span": _deep_span,
+             "full_range": _full_range, "non_unique": _non_unique,
+             "two_pass_sized": _two_pass_sized,
+             "generated_fullrange": _generated_fullrange, "zipf": _zipf}
+
+
+@pytest.mark.parametrize("algo", ["PRO", "PRH", "NPO"])
+@pytest.mark.parametrize("workload", sorted(WORKLOADS))
+def test_run_join_exact(workload, algo):
+    rk, rp, sk, sp, stats = WORKLOADS[workload]()
     want = native.ref_join(rk, rp, sk, sp)
-    stats = KeyStats(min_key=1, max_key=5000, is_unique=True)
     R = Relation.from_numpy(rk, rp, stats=stats)
     S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True)
-    res, st, _ = run_join("PRO", R, S, cfg)
-    assert st.tier == "pallas_radix"
+    res, st, (sr, ss) = run_join(algo, R, S, EngineConfig())
+    span = int(rk.max()) - int(rk.min()) + 1
+    wide = span > registry.HT_MAX_SLOTS
+    assert st.tier == ("sortscan" if algo == "PRH" or wide else "ht")
     assert res.count() == want[0]
-    assert st.part_usec > 0 and st.probe_usec > 0
+    assert sr == want[1] % 2**32 and ss == want[2] % 2**32
+
+
+@pytest.mark.parametrize("variant", [BloomVariant.BLOCKED, BloomVariant.BASIC])
+@pytest.mark.parametrize("workload", ["deep_span", "full_range", "skewed"])
+def test_bloom_via_run_join_exact(workload, variant):
+    """The bloom twin: exact join, and a survivor count equal to the
+    bit-exact scalar filter's."""
+    rk, rp, sk, sp, stats = WORKLOADS[workload]()
+    args = BloomArgs(variant=variant, m=1 << 16, k=2, B=512)
+    want = native.ref_join(rk, rp, sk, sp)
+    want_after = int(native.ref_bloom(variant.value, args.m, args.k, args.B,
+                                      args.seed, rk, sk).sum())
+    R = Relation.from_numpy(rk, rp, stats=stats)
+    S = Relation.from_numpy(sk, sp)
+    res, st, (sr, ss) = run_join("PRO", R, S, EngineConfig(), args)
+    assert res.count() == want[0]
+    assert sr == want[1] % 2**32 and ss == want[2] % 2**32
+    assert res.s_after_filter == want_after
+    assert st.prune_usec > 0
+
+
+@pytest.mark.parametrize("bloom", [False, True])
+@pytest.mark.parametrize("unique", [True, False])
+def test_materialized_pairs_exact(unique, bloom):
+    """--materialize emits exactly the reference's pairs, as a multiset."""
+    if unique:
+        rk, rp, sk, sp = _workload(n_r=3000, n_s=20000, hi_mult=3, seed=13)
+        stats = KeyStats(1, 3000, is_unique=True)
+    else:
+        rk, rp, sk, sp, stats = _non_unique()
+        rk, sk = rk[:2000], sk[:6000]
+        rp, sp = rp[:2000], sp[:6000]
+    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 16, k=2, B=512) \
+        if bloom else None
+    R = Relation.from_numpy(rk, rp, stats=stats)
+    S = Relation.from_numpy(sk, sp)
+    res, st, _ = run_join("PRO", R, S, EngineConfig(materialize=True), args)
+    assert st.tier == "materialize"
+    pays = {}
+    for k, p in zip(rk.tolist(), rp.tolist()):
+        pays.setdefault(k, []).append(p)
+    want = sorted((r, s) for k, s in zip(sk.tolist(), sp.tolist())
+                  for r in pays.get(k, []))
+    n = res.count()
+    got = sorted(zip(np.asarray(res.r_payload)[:n].tolist(),
+                     np.asarray(res.s_payload)[:n].tolist()))
+    assert n == len(want)
+    assert got == want
+
+
+def _relation(key8b=False, span=5000, unique=True):
+    rk = np.arange(1, 101, dtype=np.int32)
+    rk[-1] = span
+    stats = KeyStats(1, span, is_unique=unique)
+    return Relation.from_numpy(rk, rk, stats=stats, key8b=key8b)
+
+
+@pytest.mark.parametrize("algo,rel,materialize,want", [
+    ("PRO", dict(), False, "ht"),
+    ("NPO", dict(), False, "ht"),
+    ("PRHO", dict(), False, "ht"),
+    ("PRH", dict(), False, "sortscan"),
+    ("PRO", dict(span=registry.HT_MAX_SLOTS + 1), False, "sortscan"),
+    ("PRO", dict(), True, "materialize"),
+    ("PRO", dict(key8b=True), False, "key8b"),
+    ("PRO", dict(key8b=True), True, "materialize8b"),
+])
+def test_select_tier_from_input(algo, rel, materialize, want):
+    """The tier follows from tuple width, key span and materialization."""
+    R = _relation(**rel)
+    key_range = registry._key_range(R) if R.key_hi is None else None
+    tier = registry.select_tier(registry.ALGORITHMS[algo], R,
+                                EngineConfig(materialize=materialize),
+                                key_range)
+    assert tier == want
+
+
+def test_key_range_declared_and_measured():
+    R = _relation(span=777)
+    assert registry._key_range(R) == (1, 777)
+    rk = np.array([-5, 3, 40], np.int32)
+    assert registry._key_range(Relation.from_numpy(rk)) == (-5, 40)
+    assert registry._key_range(_relation(
+        span=registry.HT_MAX_SLOTS + 1)) is None
 
 
 def test_run_join_key8b():
@@ -84,7 +219,6 @@ def test_run_join_materialize():
     pairs_native = native.ref_join(rk, rp, sk, sp)
     assert res.count() == pairs_native[0]
     # materialized pairs match ground truth as a multiset
-    got = set()
     rpay = np.asarray(res.r_payload)[:res.count()]
     spay = np.asarray(res.s_payload)[:res.count()]
     got = sorted(zip(rpay.tolist(), spay.tolist()))
@@ -118,80 +252,15 @@ def test_run_join_sortscan_part_phase():
     assert st.part_usec > 0 and st.probe_usec > 0
 
 
-def test_two_pass_partition_same_count():
-    """NUM_PASSES=2 (pass-1 high bits + contiguous pass-2) matches 1-pass.
-
-    Reference structure: parallel pass 1 + serial_radix_partition pass 2
-    (parallel_radix_join.c:680,735; prj_params.h NUM_PASSES).
-    """
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join, multipass
-
-    rk, rp, sk, sp = _workload(n_r=60000, n_s=120000, hi_mult=2, seed=3)
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    plan2 = multipass.plan_radix_join_2pass(
-        jnp.asarray(rk), jnp.asarray(sk), 1, 60000, interpret=True,
-        num_radix_bits=4)
-    assert plan2 is not None
-    assert plan2.pass2.b1 + plan2.pass2.b2 == plan2.geom.part_bits
-    assert plan2.count() == want
-    plan1 = bitmap_join.plan_radix_join(
-        jnp.asarray(rk), jnp.asarray(sk), 1, 60000, interpret=True,
-        num_radix_bits=4)
-    assert plan1.count() == want
-
-
-def test_two_pass_via_run_join():
-    rk, rp, sk, sp = _workload(n_r=60000, n_s=50000, hi_mult=2, seed=4)
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    stats = KeyStats(min_key=1, max_key=60000, is_unique=True)
-    R = Relation.from_numpy(rk, rp, stats=stats)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True,
-                       radix=RadixConfig(passes=2, num_radix_bits=4))
-    res, st, _ = run_join("PRO", R, S, cfg)
-    assert st.tier == "pallas_radix"
-    assert res.count() == want
-
-
-def test_prho_pallas_tier_checksums_cross_engine():
-    """PRHO is a distinct Pallas engine (count-slice gather probe) whose
-    count AND checksums agree with the ht, sortscan, and native engines —
-    the cross-engine agreement methodology of the reference (SURVEY 4.2).
-    Non-unique build side exercises multiplicity."""
-    rng = np.random.default_rng(7)
-    rk = rng.integers(1, 4000, 6000).astype(np.int32)   # non-unique R
-    rp = rng.integers(0, 1 << 30, 6000).astype(np.int32)
-    sk = rng.integers(1, 8000, 30000).astype(np.int32)
-    sp = rng.integers(0, 1 << 30, 30000).astype(np.int32)
-    want, wsr, wss = native.ref_join(rk, rp, sk, sp)
-
-    R = Relation.from_numpy(rk, rp)
-    S = Relation.from_numpy(sk, sp)
-    res, st, (sr, ss) = run_join("PRHO", R, S, EngineConfig(interpret=True))
-    assert st.tier == "pallas_prho"
-    assert res.count() == want
-    assert sr == wsr % 2**32 and ss == wss % 2**32
-    # cross-engine: ht (NPO) and sortscan (PRH) agree
-    for algo, tier in (("NPO", "ht"), ("PRH", "sortscan")):
-        r2, st2, (sr2, ss2) = run_join(algo, R, S, EngineConfig())
-        assert st2.tier == tier
-        assert r2.count() == want and sr2 == sr and ss2 == ss
-
-
 def test_key8b_bloom_low_word_truncation():
     """--key8b + bloom: the filter sees the LOW key word (the reference's
     uint32 filter API truncates int64 keys)."""
-    import pytest as _pytest
-
-    from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-
     rk, rp, sk, sp = _workload(n_r=3000, n_s=12000, hi_mult=2)
     want, _, _ = native.ref_join(rk, rp, sk, sp)
     R = Relation.from_numpy(rk, rp, key8b=True)
     S = Relation.from_numpy(sk, sp, key8b=True)
     args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 16, k=2, B=512)
-    res, st, _ = run_join("PRO", R, S, EngineConfig(key8b=True), args)
+    res, st, _ = run_join("PRO", R, S, EngineConfig(), args)
     assert st.tier == "key8b"
     assert res.count() == want            # no false negatives ever
     assert res.s_after_filter is not None
@@ -213,7 +282,7 @@ def test_key8b_wide_payload_checksums():
     want_ss = int(sp[match].astype(np.uint64).sum(dtype=np.uint64))
     R = Relation.from_numpy(rk, rp, key8b=True)
     S = Relation.from_numpy(sk, sp, key8b=True)
-    res, st, (sr, ss) = run_join("PRO", R, S, EngineConfig(key8b=True))
+    res, st, (sr, ss) = run_join("PRO", R, S, EngineConfig())
     assert st.tier == "key8b"
     assert res.count() == int(match.sum())
     assert sr == want_sr
@@ -221,7 +290,7 @@ def test_key8b_wide_payload_checksums():
 
 
 def test_key8b_materialize():
-    """KEY_8B + materialize: 64-bit rid pairs (was NotImplementedError)."""
+    """KEY_8B + materialize: 64-bit rid pairs."""
     rng = np.random.default_rng(22)
     n_r, n_s = 800, 3000
     rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int64)
@@ -230,8 +299,7 @@ def test_key8b_materialize():
     sp = rng.integers(2**31, 2**40, n_s).astype(np.int64)
     R = Relation.from_numpy(rk, rp, key8b=True)
     S = Relation.from_numpy(sk, sp, key8b=True)
-    res, st, _ = run_join("PRO", R, S,
-                          EngineConfig(key8b=True, materialize=True))
+    res, st, _ = run_join("PRO", R, S, EngineConfig(materialize=True))
     assert st.tier == "materialize8b"
     match = np.isin(sk, rk)
     n = res.count()
@@ -244,325 +312,14 @@ def test_key8b_materialize():
     assert got == want
 
 
-def test_dense_tier_wide_span_no_crash():
-    """Dense fast path must not depend on the count-table range cap."""
-    import jax
-
-    n = 5000
-    lo = 1
-    hi = lo + (1 << 29)    # span beyond HT_MAX_SLOTS
-    rk = np.arange(lo, lo + n, dtype=np.int32)
-    rng = np.random.default_rng(2)
-    rk = rng.permutation(rk)
-    sk = rng.integers(lo, lo + 2 * n, 20000).astype(np.int32)
-    stats = KeyStats(min_key=lo, max_key=lo + n - 1, is_dense_pk=True,
-                     is_unique=True)
-    # simulate the crash path: key_range=None (span cap) + dense selected
-    from hwbloomradixjoin_tpu.models import registry
-    R = Relation.from_numpy(rk, np.arange(n, dtype=np.int32), stats=stats)
-    assert registry._key_range(R) is not None  # real range is small; force:
-    wide = KeyStats(min_key=lo, max_key=hi, is_dense_pk=True,
-                    is_unique=True)
-    Rw = Relation.from_numpy(rk, np.arange(n, dtype=np.int32), stats=wide)
-    assert registry._key_range(Rw) is None
-    S = Relation.from_numpy(sk, np.arange(20000, dtype=np.int32))
-    if jax.default_backend() == "tpu":
-        res, st, _ = run_join("PRO", Rw, S, EngineConfig())
-        assert st.tier == "dense"
-
-
-def test_skewed_run_multi_tile_probe(monkeypatch):
-    """Heavy key skew: runs larger than the window cap are served by
-    multiple ownership-masked tiles — exact counts, no fallback (the
-    single-chip SKEW_HANDLING analogue)."""
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    monkeypatch.setattr(bitmap_join, "C_ROWS_CAP", 64)
-    rng = np.random.default_rng(13)
-    n_r = 5000
-    rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int32)
-    sk = np.concatenate([
-        np.full(60000, 7, np.int32),            # one heavy key
-        rng.integers(1, 2 * n_r, 40000).astype(np.int32)])
-    rng.shuffle(sk)
-    plan = bitmap_join.plan_radix_join(jnp.asarray(rk), jnp.asarray(sk),
-                                       1, n_r, interpret=True)
-    assert plan is not None
-    assert plan.geom.ntiles > 1
-    want = int(np.isin(sk, rk).sum())
-    assert plan.count() == want
-
-
-def test_pallas_build_matches_xla_bitmap():
-    """The MXU deposit build is bit-identical to the XLA scatter build,
-    across geometries, offsets and sparse key sets."""
-    import jax
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    rng = np.random.default_rng(5)
-    cases = [
-        # (keys, lo, hi, num_radix_bits)
-        (rng.permutation(np.arange(1, 5001)).astype(np.int32), 1, 5000, None),
-        (rng.permutation(np.arange(1, 5001)).astype(np.int32), 1, 5000, 2),
-        # sparse: 3000 distinct keys in a 200k span, offset lo
-        (rng.choice(np.arange(1000, 201000), 3000, replace=False)
-         .astype(np.int32), 1000, 200999, None),
-        # tiny range (range_bits floor=12, part_bits=0 -> single bucket)
-        (rng.permutation(np.arange(1, 300)).astype(np.int32), 1, 299, None),
-    ]
-    for keys, lo, hi, bits in cases:
-        pb, shift, slr = bitmap_join.plan_geometry(lo, hi, bits)
-        want = jax.jit(lambda k: bitmap_join.build_bitmap(
-            k, lo, hi, pb, shift, slr))(jnp.asarray(keys))
-        out = bitmap_join.plan_bitmap_build(
-            keys, lo, hi, pb, shift, slr, interpret=True)
-        assert out is not None
-        build_from, rk_in, _ = out
-        got = jax.jit(build_from)(rk_in, jnp.int32(0))
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_pallas_build_skewed_bucket_tiles(monkeypatch):
-    """R concentrated in one bucket: build windows span several tiles,
-    ownership masks keep the deposit exact (no double-set, no misses)."""
-    import jax
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    monkeypatch.setattr(bitmap_join, "C_ROWS_CAP", 16)
-    rng = np.random.default_rng(11)
-    # 90% of keys in the first bucket's range of a 17-bit-shift geometry
-    lo_keys = rng.choice(np.arange(1, 4000), 3500, replace=False)
-    hi_keys = rng.choice(np.arange(4000, 260000), 350, replace=False)
-    keys = np.concatenate([lo_keys, hi_keys]).astype(np.int32)
-    rng.shuffle(keys)
-    lo, hi = 1, 259999
-    pb, shift, slr = bitmap_join.plan_geometry(lo, hi)
-    want = jax.jit(lambda k: bitmap_join.build_bitmap(
-        k, lo, hi, pb, shift, slr))(jnp.asarray(keys))
-    build_from, rk_in, bgeom = bitmap_join.plan_bitmap_build(
-        keys, lo, hi, pb, shift, slr, interpret=True)
-    assert bgeom.ntiles > 1
-    got = jax.jit(build_from)(rk_in, jnp.int32(0))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_full_fn_includes_build_same_count():
-    """full_count (build+partition+probe fused) agrees with count()."""
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    rk, rp, sk, sp = _workload(n_r=3000, n_s=20000, hi_mult=2)
-    plan = bitmap_join.plan_radix_join(jnp.asarray(rk), jnp.asarray(sk),
-                                       1, 3000, interpret=True)
-    assert plan is not None and plan.full_fn is not None
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    assert plan.full_count() == want
-    assert plan.count() == want
-
-
-def test_two_pass_skewed_falls_back(monkeypatch):
-    """ADVICE r3: a pass-1 bucket filling a whole chunk must not produce
-    negative gather windows — the 2-pass planner falls back (None) and
-    run_join still returns the exact count via the 1-pass engine."""
-    rng = np.random.default_rng(13)
-    n_r = 5000
-    rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int32)
-    sk = np.concatenate([
-        np.full(200000, 7, np.int32),           # heavy key >> chunk size
-        rng.integers(1, 2 * n_r, 30000).astype(np.int32)])
-    rng.shuffle(sk)
-    sp = np.zeros_like(sk)
-    stats = KeyStats(min_key=1, max_key=n_r, is_unique=True)
-    R = Relation.from_numpy(rk, np.arange(n_r, dtype=np.int32), stats=stats)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True, radix=RadixConfig(passes=2))
-    res, st, _ = run_join("PRO", R, S, cfg)
-    want = int(np.isin(sk, rk).sum())
-    assert res.count() == want
-
-
-def test_prh_pallas_tier_count_and_rsum():
-    """PRH tier: keys-only count-table probe, non-unique R, r-checksum."""
-    rng = np.random.default_rng(3)
-    rk = rng.integers(1, 4000, 6000).astype(np.int32)   # non-unique R
-    rp = rng.integers(0, 2**31 - 1, 6000).astype(np.int32)
-    sk = rng.integers(1, 8000, 30000).astype(np.int32)
-    sp = np.arange(30000, dtype=np.int32)
-    want, wr, _ = native.ref_join(rk, rp, sk, sp)
-    R = Relation.from_numpy(rk, rp)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True)
-    res, st, (sr, ss) = run_join("PRH", R, S, cfg)
-    assert st.tier == "pallas_prh"
-    assert res.count() == want
-    assert sr == wr % 2**32
-    assert st.part_usec > 0 and st.probe_usec > 0 and st.build_usec > 0
-
-
-def test_npo_pallas_tier_phases():
-    """NPO tier: count-table engine, NPO phase contract (no part time)."""
-    rk, rp, sk, sp = _workload(n_r=4000, n_s=30000, hi_mult=2)
+@pytest.mark.parametrize("workload", ["deep_span", "non_unique"])
+def test_key8b_exact_on_wide_tier(workload):
+    """key8b over the workloads above: 64-bit sort tier, sums mod 2^64."""
+    rk, rp, sk, sp, _ = WORKLOADS[workload]()
     want = native.ref_join(rk, rp, sk, sp)
-    R = Relation.from_numpy(rk, rp)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True)
-    res, st, (sr, ss) = run_join("NPO", R, S, cfg)
-    assert st.tier == "pallas_npo"
-    assert res.count() == want[0]
-    assert sr == want[1] % 2**32 and ss == want[2] % 2**32
-    assert st.part_usec == 0.0 and st.probe_usec > 0
-
-
-def test_prho_pallas_build_multiplicity_guard():
-    """>=65k duplicates of one key: the limb-exactness guard falls back."""
-    from hwbloomradixjoin_tpu.ops import prho_join
-
-    rk = np.concatenate([np.full(70000, 5, np.int32),
-                         np.arange(1, 1000, dtype=np.int32)])
-    rp = np.ones_like(rk)
-    plan = prho_join.plan_prho_join(rk, rp, rk[:128], rp[:128],
-                                    1, 1000, interpret=True)
-    assert plan is None
-
-
-def test_probe_many_chunks_per_step():
-    """Tiny windows (low selectivity) raise ch_per_step past 32 so the
-    grid shrinks — exact counts with >32 chunk slots per probe step."""
-    import numpy as np
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    rng = np.random.default_rng(4)
-    n_r = 60000
-    rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int32)
-    sk = rng.integers(1, 80 * n_r, 600000).astype(np.int32)
-    # survivor_frac=1.0 pins the direct (no-compaction) path, where tiny
-    # pruned runs leave many chunk slots per probe step; the compaction
-    # path densifies instead (covered by test_deep_shift_geometry_exact)
-    plan = bitmap_join.plan_radix_join(rk, sk, 1, n_r, interpret=True,
-                                       chunk_rows=64, survivor_frac=1.0)
-    assert plan is not None and plan.geom.ch_per_step > 32
-    assert plan.count() == int(np.isin(sk, rk).sum())
-
-
-def test_deep_shift_geometry_exact():
-    """Deep-shift probe slices (sl_rows > 128, fori-loop ladder) with the
-    decoupled finer build geometry: exact count on a low-selectivity
-    2M-key-range workload (the north-star regime, shrunk)."""
-    import jax.numpy as jnp
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    rng = np.random.default_rng(7)
-    lo, hi = 1, (1 << 21)
-    rk = rng.choice(np.arange(lo, hi + 1), 4000, replace=False)\
-        .astype(np.int32)
-    # ~10% of S inside [lo, hi] (rest pruned in pass 1), some hits
-    sk = np.concatenate([
-        rng.choice(rk, 1500),
-        rng.integers(lo, hi + 1, 1500),
-        rng.integers(hi + 1, 1 << 28, 27000),
-    ]).astype(np.int32)
-    rng.shuffle(sk)
-    pb, shift, slr = bitmap_join.plan_geometry(lo, hi, 1)
-    assert slr > 128                       # fori ladder path
-    bits_r, shift_r, slr_r = bitmap_join.plan_build_geometry(
-        lo, hi, pb, shift, slr)
-    assert (bits_r, shift_r) != (pb, shift)  # decoupled build geometry
-    assert (1 << bits_r) * slr_r == (1 << pb) * slr  # same global bitmap
-    plan = bitmap_join.plan_radix_join(
-        jnp.asarray(rk), jnp.asarray(sk), lo, hi, interpret=True,
-        num_radix_bits=1)
-    assert plan is not None
-    want = int(np.isin(sk, rk).sum())
-    assert plan.count() == want
-    assert plan.full_count() == want
-
-
-def test_plan_geometry_survivor_frac_drives_fanout():
-    """Low survivor fraction shifts the fan-out optimum to fewer bits."""
-    from hwbloomradixjoin_tpu.ops import bitmap_join
-
-    lo, hi = 1, (1 << 27)
-    pb_all, _, _ = bitmap_join.plan_geometry(lo, hi, survivor_frac=1.0)
-    pb_few, _, slr = bitmap_join.plan_geometry(lo, hi, survivor_frac=0.01)
-    assert pb_few < pb_all
-    assert slr > 128
-
-
-def test_full_range_tier_selection():
-    """Spans beyond the count-table cap (HT_MAX_SLOTS) still ride the
-    bitmap engine: 1 bit/slot serves the full int32 key space
-    (--full-range workloads, src/main.c:607-615)."""
-    from hwbloomradixjoin_tpu.models import registry
-
-    rng = np.random.default_rng(3)
-    span_hi = (1 << 28) + 7            # > HT_MAX_SLOTS, < BITMAP_MAX_SPAN
-    rk = rng.choice(np.arange(1, span_hi, dtype=np.int64), 3000,
-                    replace=False).astype(np.int32)
-    stats = KeyStats(min_key=1, max_key=span_hi - 1, is_unique=True)
-    R = Relation.from_numpy(rk, np.arange(3000, dtype=np.int32), stats=stats)
-    assert registry._key_range(R) is None
-    wide = registry._key_range(R, registry.BITMAP_MAX_SPAN,
-                               require_nonneg=True)
-    assert wide == (1, span_hi - 1)
-    cfg = EngineConfig(interpret=True)
-    tier = registry.select_tier(registry.ALGORITHMS["PRO"], R, cfg,
-                                None, wide)
-    assert tier == "pallas_radix"
-    # negative lo disqualifies the wide bitmap range (normalized keys
-    # must stay in int32)
-    stats2 = KeyStats(min_key=-5, max_key=span_hi - 1, is_unique=True)
-    R2 = Relation.from_numpy(rk, np.arange(3000, dtype=np.int32),
-                             stats=stats2)
-    assert registry._key_range(R2, registry.BITMAP_MAX_SPAN,
-                               require_nonneg=True) is None
-
-
-def test_pallas_materialize_pairs_exact():
-    """The Pallas materialization tier emits exactly the XLA tier's pairs
-    (order-insensitive) for unique R, including the count."""
-    rk, rp, sk, sp = _workload(n_r=3000, n_s=20000, hi_mult=3, seed=13)
-    stats = KeyStats(min_key=1, max_key=3000, is_unique=True)
-    R = Relation.from_numpy(rk, rp, stats=stats)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True, materialize=True)
-    res, st, _ = run_join("PRO", R, S, cfg)
-    assert st.tier == "pallas_materialize"
-    rmap = {int(k): int(p) for k, p in zip(rk, rp)}
-    want_pairs = sorted((rmap[int(k)], int(p))
-                        for k, p in zip(sk, sp) if int(k) in rmap)
-    got = sorted(zip(np.asarray(res.r_payload).tolist(),
-                     np.asarray(res.s_payload).tolist()))
-    assert res.count() == len(want_pairs)
-    assert got == want_pairs
-
-
-def test_pallas_materialize_nonunique_falls_back():
-    rng = np.random.default_rng(3)
-    rk = rng.integers(1, 2000, 4000).astype(np.int32)   # non-unique
-    rp = np.arange(4000, dtype=np.int32)
-    sk = rng.integers(1, 4000, 9000).astype(np.int32)
-    sp = np.arange(9000, dtype=np.int32)
-    R = Relation.from_numpy(rk, rp)
-    S = Relation.from_numpy(sk, sp)
-    cfg = EngineConfig(interpret=True, materialize=True)
-    res, st, _ = run_join("PRO", R, S, cfg)
-    assert st.tier == "materialize"       # XLA sort tier serves it
-    want = sum((rk == k).sum() for k in sk)
-    assert res.count() == int(want)
-
-
-def test_pallas_key8b_tier_interpret():
-    """KEY_8B with 32-bit-valued keys (the reference's workload-A shape)
-    rides the Pallas bitmap engine via low-word column projection."""
-    rk, rp, sk, sp = _workload(n_r=4000, n_s=30000, hi_mult=3, seed=17)
-    want, _, _ = native.ref_join(rk, rp, sk, sp)
-    stats = KeyStats(min_key=1, max_key=4000, is_unique=True)
-    R = Relation.from_numpy(rk, rp, key8b=True, stats=stats)
+    R = Relation.from_numpy(rk, rp, key8b=True)
     S = Relation.from_numpy(sk, sp, key8b=True)
-    assert R.key_hi is not None
-    res, st, _ = run_join("PRO", R, S, EngineConfig(interpret=True))
-    assert st.tier == "pallas_key8b"
-    assert res.count() == want
+    res, st, (sr, ss) = run_join("PRO", R, S, EngineConfig())
+    assert st.tier == "key8b"
+    assert res.count() == want[0]
+    assert sr == want[1] % 2**64 and ss == want[2] % 2**64

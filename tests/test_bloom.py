@@ -10,9 +10,9 @@ measurements/data/bloom_filter_fpr.txt (m=2^30, n=128M, |S|=1.024B).
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-from hwbloomradixjoin_tpu.data import native
-from hwbloomradixjoin_tpu.ops import bloom
+from hwbloomradixjoin.config import BloomArgs, BloomVariant
+from hwbloomradixjoin.data import native
+from hwbloomradixjoin.ops import bloom
 
 SEED = 817263
 M = 1 << 20
@@ -74,115 +74,3 @@ def test_theoretical_fpr():
     # golden table rows (m=2^30, n=128M): k=1 -> 11.238%, k=6 -> 1.779%
     assert round(bloom.theoretical_fpr(1 << 30, 1, 128_000_000) * 100, 3) == 11.238
     assert round(bloom.theoretical_fpr(1 << 30, 6, 128_000_000) * 100, 3) == 1.779
-
-
-def test_bloom_pallas_prune_matches_xla():
-    """Pallas blocked-bloom prune (hash-partition + VMEM slice probe) keeps
-    exactly the same survivor multiset as the bit-exact XLA filter path."""
-    import jax
-    import jax.numpy as jnp
-
-    from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-    from hwbloomradixjoin_tpu.ops import bloom as bloom_ops
-    from hwbloomradixjoin_tpu.ops import bloom_pallas
-
-    rng = np.random.default_rng(5)
-    rk = rng.permutation(np.arange(1, 5001)).astype(np.int32)
-    sk = rng.integers(1, 20000, 30000).astype(np.int32)
-    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 15, k=2, B=512)
-
-    plan = bloom_pallas.plan_bloom_prune(jnp.asarray(rk), jnp.asarray(sk),
-                                         args, interpret=True)
-    assert plan is not None
-    pruned, n = plan.prune_fn(jnp.int32(0))
-    pruned = np.asarray(pruned).ravel()
-    survivors = np.sort(pruned[pruned != np.int32(-2147483648)])
-
-    bm = bloom_ops.build_bitmap_host(rk, args)
-    keep = bloom_ops.probe_bitmap_host(bm, sk, args)
-    want = np.sort(sk[keep])
-    assert int(n) == len(want)
-    assert np.array_equal(survivors, want)
-
-
-def test_bloom_pallas_prune_via_run_join():
-    """BPRO through the engine with the Pallas prune: count + s_after match
-    the reference semantics (filter keeps all true matches; s_after equals
-    the bit-exact filter's survivor count)."""
-    from hwbloomradixjoin_tpu.config import (BloomArgs, BloomVariant,
-                                             EngineConfig)
-    from hwbloomradixjoin_tpu.models import run_join
-    from hwbloomradixjoin_tpu.ops import bloom as bloom_ops
-    from hwbloomradixjoin_tpu.types import KeyStats, Relation
-
-    rng = np.random.default_rng(9)
-    n_r = 4096
-    rk = rng.permutation(np.arange(1, n_r + 1)).astype(np.int32)
-    rp = np.arange(n_r, dtype=np.int32)
-    sk = rng.integers(1, 4 * n_r, 40000).astype(np.int32)
-    sp = np.arange(40000, dtype=np.int32)
-    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 16, k=2, B=512)
-
-    R = Relation.from_numpy(rk, rp,
-                            stats=KeyStats(1, n_r, is_unique=True))
-    S = Relation.from_numpy(sk, sp)
-    res, st, _ = run_join("PRO", R, S, EngineConfig(interpret=True), args)
-    assert st.tier == "pallas_radix"
-    want = int(np.isin(sk, rk).sum())
-    assert res.count() == want
-    bm = bloom_ops.build_bitmap_host(rk, args)
-    want_after = int(bloom_ops.probe_bitmap_host(bm, sk, args).sum())
-    assert res.s_after_filter == want_after
-    assert st.part_usec > 0
-
-
-def test_bloom_pallas_2pass_deep_geometry(monkeypatch):
-    """Deep filter geometry (part_bits > single-pass cap): the 2-pass
-    hash partition tier produces the same survivor multiset.  The cap is
-    lowered so the scaled-down config exercises the flagship (m=2^30
-    B=512) code path in interpret mode."""
-    import jax.numpy as jnp
-
-    from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-    from hwbloomradixjoin_tpu.ops import bloom as bloom_ops
-    from hwbloomradixjoin_tpu.ops import bloom_pallas
-
-    monkeypatch.setattr(bloom_pallas, "MAX_PART_BITS", 2)
-    rng = np.random.default_rng(17)
-    rk = rng.permutation(np.arange(1, 4001)).astype(np.int32)
-    sk = rng.integers(1, 30000, 40000).astype(np.int32)
-    # m=2^22, B=512 -> hash_bits=13, part_bits=5 > 2 -> 2-pass (b1=2,b2=3)
-    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 22, k=2, B=512)
-    assert bloom_pallas.geometry(args) is None
-    assert bloom_pallas.geometry_raw(args) is not None
-
-    plan = bloom_pallas.plan_bloom_prune(jnp.asarray(rk), jnp.asarray(sk),
-                                         args, interpret=True)
-    assert plan is not None
-    pruned, n = plan.prune_fn(jnp.int32(0))
-    pruned = np.asarray(pruned).ravel()
-    survivors = np.sort(pruned[pruned != np.int32(-2147483648)])
-
-    bm = bloom_ops.build_bitmap_host(rk, args)
-    keep = bloom_ops.probe_bitmap_host(bm, sk, args)
-    want = np.sort(sk[keep])
-    assert int(n) == len(want)
-    assert np.array_equal(survivors, want)
-
-
-def test_bloom_pallas_oversized_block_falls_back():
-    """ADVICE r3: B > slice capacity must return None (XLA fallback), not
-    crash on a negative shift (e.g. --bloom-block-size 262144, m=2^26)."""
-    import jax.numpy as jnp
-
-    from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-    from hwbloomradixjoin_tpu.ops import bloom_pallas
-
-    args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 26, k=2,
-                     B=1 << 18)
-    assert bloom_pallas.geometry(args) is None
-    assert bloom_pallas.geometry_raw(args) is None
-    rk = jnp.arange(1, 1001, dtype=jnp.int32)
-    sk = jnp.arange(1, 5001, dtype=jnp.int32)
-    assert bloom_pallas.plan_bloom_prune(rk, sk, args,
-                                         interpret=True) is None

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-from hwbloomradixjoin_tpu.data import generator as G
-from hwbloomradixjoin_tpu.data import native
-from hwbloomradixjoin_tpu.parallel import dist_join, mesh as mesh_lib
+from hwbloomradixjoin.config import BloomArgs, BloomVariant
+from hwbloomradixjoin.data import generator as G
+from hwbloomradixjoin.data import native
+from hwbloomradixjoin.parallel import dist_join, mesh as mesh_lib
 
 
 @pytest.fixture(scope="module")
@@ -84,25 +84,53 @@ def test_multiprocess_distributed_cpu():
 
 
 @pytest.mark.parametrize("n_dev", [1, 2, 8])
-def test_dist_pallas_local_engine(eight_devices, workload, n_dev):
-    """SPMD shuffle + Pallas bitmap local join compose (count-only path):
-    the per-device join is traced_radix_count, not the XLA sort tier."""
+def test_dist_count_table_local_join(eight_devices, workload, n_dev):
+    """With R's key range declared, each device joins its hash range on a
+    count table: exact count and both checksums."""
     rk, rp, sk, sp, want = workload
     mesh = mesh_lib.make_mesh(n_dev)
     cnt, sr, ss, s_after, ovf = dist_join.dist_join_count(
-        mesh, rk, rp, sk, sp, local_engine="pallas",
-        key_range=(1, 8_192), interpret=True)
+        mesh, rk, rp, sk, sp, key_range=(1, 8_192))
     assert int(ovf) == 0
     assert int(cnt) == want[0]
+    assert int(sr) == want[1] % 2**32 and int(ss) == want[2] % 2**32
 
 
-def test_dist_pallas_with_bloom_prune(eight_devices, workload):
+def test_dist_count_table_with_bloom_prune(eight_devices, workload):
     rk, rp, sk, sp, want = workload
     mesh = mesh_lib.make_mesh(4)
     args = BloomArgs(variant=BloomVariant.BLOCKED, m=1 << 20, k=2, B=512)
     cnt, sr, ss, s_after, ovf = dist_join.dist_join_count(
-        mesh, rk, rp, sk, sp, bloom_args=args, local_engine="pallas",
-        key_range=(1, 8_192), interpret=True)
+        mesh, rk, rp, sk, sp, bloom_args=args, key_range=(1, 8_192))
     assert int(ovf) == 0
     assert int(cnt) == want[0]
-    assert want[0] <= int(s_after) < sk.shape[0]
+    assert int(sr) == want[1] % 2**32 and int(ss) == want[2] % 2**32
+    want_after = int(native.ref_bloom("blocked", args.m, args.k, args.B,
+                                      args.seed, rk, sk).sum())
+    assert int(s_after) == want_after
+
+
+def test_dist_place_once_then_step(eight_devices, workload):
+    """Placement is separate from the step: placed columns are reused as
+    they are, and repeated calls reuse one compiled step."""
+    rk, rp, sk, sp, want = workload
+    mesh = mesh_lib.make_mesh(4)
+    cols = dist_join.place(mesh, rk, rp, sk, sp)
+    assert all(a is b for a, b in zip(dist_join.place(mesh, *cols), cols))
+    before = dist_join._compiled_step.cache_info().hits
+    for _ in range(2):
+        cnt = dist_join.dist_join_count(mesh, *cols, key_range=(1, 8_192))[0]
+        assert int(cnt) == want[0]
+    assert dist_join._compiled_step.cache_info().hits >= before + 1
+
+
+def test_dist_wide_key_range_joins_by_sort(eight_devices, workload):
+    """A key span past HT_MAX_SLOTS falls back to the sort-scan local join."""
+    from hwbloomradixjoin.models.registry import HT_MAX_SLOTS
+
+    rk, rp, sk, sp, want = workload
+    mesh = mesh_lib.make_mesh(2)
+    cnt, sr, ss, _, ovf = dist_join.dist_join_count(
+        mesh, rk, rp, sk, sp, key_range=(0, HT_MAX_SLOTS))
+    assert int(ovf) == 0 and int(cnt) == want[0]
+    assert int(sr) == want[1] % 2**32 and int(ss) == want[2] % 2**32

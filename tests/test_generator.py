@@ -19,8 +19,8 @@ import os
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.data import generator as G
-from hwbloomradixjoin_tpu.data import native, tblio
+from hwbloomradixjoin.data import generator as G
+from hwbloomradixjoin.data import native, tblio
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "relations_golden.npz")

@@ -6,7 +6,7 @@ import sys
 
 import numpy as np
 
-from hwbloomradixjoin_tpu import confrun
+from hwbloomradixjoin import confrun
 
 
 def test_parse_conf_json_and_libconfigish():
@@ -14,11 +14,11 @@ def test_parse_conf_json_and_libconfigish():
     assert j["algorithm"] == "NPO" and j["threads"] == 4
     lc = confrun.parse_conf(
         'algorithm = "PRO";\nbuild.size = 1000; // c\nprobe.selectivity = 0.5;\n'
-        'engine.use_pallas = false;\n')
+        'engine.backend = "cpu";\n')
     assert lc["algorithm"] == "PRO"
     assert lc["build"]["size"] == 1000
     assert lc["probe"]["selectivity"] == 0.5
-    assert lc["engine"]["use_pallas"] is False
+    assert lc["engine"]["backend"] == "cpu"
 
 
 def test_confrun_end_to_end(tmp_path, capsys):
@@ -27,7 +27,7 @@ def test_confrun_end_to_end(tmp_path, capsys):
         "threads": 3,
         "build": {"size": 37, "seed": 12345},
         "probe": {"size": 101, "seed": 54321, "selectivity": 0.7},
-        "engine": {"use_pallas": False, "backend": "cpu"},
+        "engine": {"backend": "cpu"},
     }
     p = tmp_path / "x.conf"
     p.write_text(json.dumps(conf))
@@ -64,9 +64,9 @@ def test_parse_result_roundtrip():
 
 def test_cli_subprocess_matches_reference_count():
     proc = subprocess.run(
-        [sys.executable, "-m", "hwbloomradixjoin_tpu.cli", "-a", "NPO_st",
+        [sys.executable, "-m", "hwbloomradixjoin.cli", "-a", "NPO_st",
          "-r", "12345", "-s", "54321", "-n", "7", "-q", "0.999",
-         "--engine-backend", "cpu", "--engine-no-pallas"],
+         "--engine-backend", "cpu"],
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-1500:]
     assert "Results = 54267. DONE." in proc.stdout

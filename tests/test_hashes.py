@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.ops import hashes
+from hwbloomradixjoin.ops import hashes
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "hash_golden.npz")
 

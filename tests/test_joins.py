@@ -3,14 +3,13 @@
 import numpy as np
 import pytest
 
-from hwbloomradixjoin_tpu.config import (BloomArgs, BloomVariant, EngineConfig,
-                                         RadixConfig)
-from hwbloomradixjoin_tpu.data import generator as G
-from hwbloomradixjoin_tpu.data import native
-from hwbloomradixjoin_tpu.models import ALGORITHMS, run_join
-from hwbloomradixjoin_tpu.types import Relation
+from hwbloomradixjoin.config import BloomArgs, BloomVariant, EngineConfig
+from hwbloomradixjoin.data import generator as G
+from hwbloomradixjoin.data import native
+from hwbloomradixjoin.models import ALGORITHMS, run_join
+from hwbloomradixjoin.types import Relation
 
-CFG = EngineConfig(radix=RadixConfig(use_pallas=False))
+CFG = EngineConfig()
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +44,7 @@ def test_bloom_twin_exact_count_and_prune(workload, algo, variant):
     negatives = 100_000 - true_matches
     fp = stats.s_after_filter - true_matches
     assert fp >= 0
-    from hwbloomradixjoin_tpu.ops import bloom as B
+    from hwbloomradixjoin.ops import bloom as B
     theo = B.theoretical_fpr(1 << 18, 2, 20_000)
     assert fp / negatives < max(3 * theo, 0.02)
 
@@ -78,6 +77,5 @@ def test_nonunique_duplicates():
     want = native.ref_join(rk, rp, sk, sp)
     R, S = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
     for algo in ("PRO", "NPO"):
-        result, _, _ = run_join(algo, R, S, EngineConfig(
-            radix=RadixConfig(use_pallas=False)))
+        result, _, _ = run_join(algo, R, S, CFG)
         assert result.count() == want[0], algo

@@ -1,8 +1,10 @@
 """Aggregate, sort, and materialization operator tests."""
 
+import jax
 import numpy as np
+import pytest
 
-from hwbloomradixjoin_tpu.ops import aggregate, sort, xla_join
+from hwbloomradixjoin.ops import aggregate, sort, xla_join
 
 
 def test_group_by_key():
@@ -68,23 +70,23 @@ def test_materialize_unique_build():
     assert got == want
 
 
-def test_radix_cluster_pallas_operator():
-    """Standalone Pallas radix-cluster: per-chunk bucket runs + starts."""
-    import jax
-    import numpy as np
-
-    from hwbloomradixjoin_tpu.ops import sort as S
-
+@pytest.mark.parametrize("bits", [0, 1, 4, 8])
+def test_radix_cluster_operator(bits):
+    """Bucket runs in MSB order, stable within a bucket, starts exact,
+    out-of-range keys after the last bucket; payloads follow their keys."""
     rng = np.random.default_rng(11)
-    keys = rng.integers(0, 1 << 16, 40000).astype(np.int32)
-    out, starts = jax.jit(
-        lambda k: S.radix_cluster(k, 0, (1 << 16) - 1, 4, interpret=True)
-    )(keys)
-    out = np.asarray(out).ravel()
-    st = np.asarray(starts).reshape(1, -1)[0]
-    # chunk 0 holds all 40000 keys; check each bucket run's contents
-    for b in range(16):
-        run = out[st[b]:st[b + 1]]
-        assert (run >> 12 == b).all()
-    got = np.sort(out[:st[16]])
-    assert np.array_equal(got, np.sort(keys))
+    lo, hi = 100, 100 + (1 << 16) - 1
+    keys = rng.integers(lo - 500, hi + 500, 40000).astype(np.int32)
+    pays = np.arange(40000, dtype=np.int32)
+    out_k, out_p, starts = jax.jit(
+        lambda k, p: sort.radix_cluster(k, lo, hi, bits, p))(keys, pays)
+    out_k, out_p, starts = map(np.asarray, (out_k, out_p, starts))
+    inside = (keys >= lo) & (keys <= hi)
+    bucket = np.where(inside, (keys.astype(np.int64) - lo) >> (16 - bits),
+                      1 << bits)
+    order = np.argsort(bucket, kind="stable")
+    assert np.array_equal(out_k, keys[order])
+    assert np.array_equal(out_p, pays[order])
+    want_starts = np.searchsorted(bucket[order], np.arange((1 << bits) + 1))
+    assert np.array_equal(starts, want_starts)
+    assert starts[-1] == int(inside.sum())

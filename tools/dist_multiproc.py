@@ -1,12 +1,11 @@
 """Real multi-process jax.distributed validation of the distributed tier.
 
-VERDICT r3 "what's missing" #4: parallel/mesh.init_distributed had never
-been executed.  This tool launches N coordinator-connected CPU processes
-(each with its own local devices), builds the global mesh spanning all of
-them, runs dist_join_count through the same shard_map program as
-single-process, and asserts the exact count + checksums on process 0 —
-the coordinator/DCN wiring path that real multi-host TPU pods use, minus
-the hardware (zero code differences: mesh.py:18-43 -> jax.distributed).
+This tool launches N coordinator-connected CPU processes (each with its
+own local devices), builds the global mesh spanning all of them, runs
+dist_join_count through the same shard_map program as single-process, and
+asserts the exact count + checksums on process 0 — the coordinator wiring
+path that a multi-host deployment uses, minus the hardware (zero code
+differences: parallel/mesh.init_distributed -> jax.distributed).
 
 Usage:
   python tools/dist_multiproc.py            # parent: spawn 2 procs, check
@@ -32,14 +31,14 @@ def child() -> int:
     jax.config.update("jax_platforms", "cpu")
     # distributed init MUST precede any backend-touching call — including
     # engine imports that build jit wrappers — so run it first thing
-    from hwbloomradixjoin_tpu.parallel import mesh as mesh_lib
+    from hwbloomradixjoin.parallel import mesh as mesh_lib
 
     assert mesh_lib.init_distributed(), "HBRJ_* env missing"
     import numpy as np
 
-    from hwbloomradixjoin_tpu.config import BloomArgs, BloomVariant
-    from hwbloomradixjoin_tpu.data import native
-    from hwbloomradixjoin_tpu.parallel import dist_join
+    from hwbloomradixjoin.config import BloomArgs, BloomVariant
+    from hwbloomradixjoin.data import native
+    from hwbloomradixjoin.parallel import dist_join
     nproc = jax.process_count()
     pid = jax.process_index()
     n_dev = len(jax.devices())
